@@ -1,7 +1,7 @@
 .PHONY: test test-fast bench dryrun native \
 	mnist-parity mnist-parity-m1024 cifar-parity digits
 
-# Real-data accuracy parity: TWO explicit MNIST targets (ADVICE r3).
+# Real-data accuracy parity: TWO explicit MNIST targets.
 # Both need mnist.npz under $DEEPCGP_DATA_DIR (or ~/.cache/deepcgp);
 # the scripts refuse the synthetic fallback.
 #   mnist-parity       — N60000_M64 artifact, 0.9769 final accuracy

@@ -27,7 +27,11 @@ def read_args(argv=None):
 
 
 def main(argv=None):
-    Cifar(read_args(argv)).run()
+    """Run the experiment; returns it (state, data and flags) for callers
+    that inspect the run afterwards."""
+    experiment = Cifar(read_args(argv))
+    experiment.run()
+    return experiment
 
 
 if __name__ == '__main__':

@@ -1,13 +1,13 @@
 """Global numeric configuration.
 
 The reference (kekeblom/DeepCGP) runs everything in float64 with an absolute
-jitter of 1e-3 (reference `gpflowrc:6-11`).  On TPU the MXU wants float32 (or
-bfloat16) compute, so the rebuild defaults to float32 with the same absolute
-jitter; float64 remains available for CPU validation runs (tests enable
-``jax_enable_x64`` and pass f64 arrays through the same code paths).
+jitter of 1e-3 (reference `gpflowrc:6-11`).  Accelerator matmul units are
+fastest in float32 (or lower), so the rebuild defaults to float32 with the
+same absolute jitter; float64 remains available for validation runs (tests
+enable ``jax_enable_x64`` and pass f64 arrays through the same code paths).
 
 Everything in this library is dtype-polymorphic: compute follows the dtype of
-the parameters, so a single code path serves both the fast f32 TPU mode and
+the parameters, so a single code path serves both the fast f32 mode and
 the f64 oracle-parity mode.
 """
 
@@ -23,7 +23,7 @@ import jax.numpy as jnp
 class Settings:
     # Absolute diagonal jitter added to every Kuu (reference gpflowrc:10).
     jitter: float = 1e-3
-    # Default parameter/compute dtype on TPU.
+    # Default parameter/compute dtype.
     float_type: type = jnp.float32
     # Lower bound of the positive-parameter bijector (gpflow 1.x Log1pe shift).
     positive_minimum: float = 1e-6

@@ -13,9 +13,8 @@ on that data, with defaults shrunk to the 8x8 geometry:
     python -m deepcgp_tpu.digits --name digits
 
 Default: single conv-kernel SVGP layer (filter 5, stride 1 -> 16
-patches), M=64 inducing patches, ~17k Adam steps.  Measured on one TPU
-v5e chip (PARITY.md "Real data: UCI digits", identical split for every
-number): M=64 reaches 0.9694 (peak 0.9833), ``-M 100`` reaches 0.9805 —
+patches), M=64 inducing patches, ~17k Adam steps.  Measured (PARITY.md
+"Real data: UCI digits", identical split for every number): M=64 reaches 0.9694 (peak 0.9833), ``-M 100`` reaches 0.9805 —
 the RBF-SVM baseline exactly — and the TWO-layer stack
 
     python -m deepcgp_tpu.digits --name digits2l \\

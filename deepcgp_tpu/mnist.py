@@ -30,7 +30,11 @@ def read_args(argv=None):
 
 
 def main(argv=None):
-    MNIST(read_args(argv)).run()
+    """Run the experiment; returns it (state, data and flags) for callers
+    that inspect the run afterwards."""
+    experiment = MNIST(read_args(argv))
+    experiment.run()
+    return experiment
 
 
 if __name__ == '__main__':

@@ -1,10 +1,10 @@
 """Base (patch-space) kernels: RBF and ArcCosine.
 
-TPU-native equivalents of the gpflow 1.x kernels the reference selects at
+JAX equivalents of the gpflow 1.x kernels the reference selects at
 `conv_gp/models.py:114-121` (hidden layers) and `conv_gp/models.py:160-191`
 (last layer, with ARD lengthscales for the plain-RBF option).
 
-Kernels are flax.struct pytrees holding *unconstrained* parameters; the
+Kernels are pytree dataclasses holding *unconstrained* parameters; the
 positive bijector matches gpflow's Log1pe so initial constrained values are
 identical to the reference (variance=5.0, lengthscales=5.0 at
 `conv_gp/models.py:115-117`).
@@ -17,9 +17,9 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from deepcgp_tpu.ops.distances import square_distance
+from deepcgp_tpu.utils import struct
 from deepcgp_tpu.utils.transforms import positive_backward, positive_forward
 
 
@@ -59,8 +59,8 @@ class RBF:
             # Isotropic: scale the SQUARED DISTANCE by 1/ls^2 instead of
             # the inputs — algebraically identical, but the scalar multiply
             # fuses into the exp epilogue for free, where dividing the
-            # [N*P, L] im2col tensor was a separate ~33us/step bandwidth
-            # pass at the flagship shape (and its backward re-read it).
+            # [N*P, L] im2col tensor is a separate bandwidth pass (and its
+            # backward re-reads it).
             d2 = square_distance(X, X2)
             return self.variance * jnp.exp((-0.5 / jnp.square(ls)) * d2)
         Xl = X / ls

@@ -10,7 +10,7 @@ Rebuilds of:
   NameError, SURVEY.md §2 row 3; fixed here.)
 
 Every ``tf.map_fn`` over the patch axis becomes a batched/broadcast kernel
-evaluation — one big MXU matmul instead of P small ones.
+evaluation — one big matmul instead of P small ones.
 """
 
 from __future__ import annotations
@@ -20,10 +20,10 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from deepcgp_tpu.config import settings
 from deepcgp_tpu.ops.linalg import add_jitter
+from deepcgp_tpu.utils import struct
 
 
 def native_patch_order_ok(base_kernel, view) -> bool:
@@ -41,18 +41,10 @@ def native_patch_order_ok(base_kernel, view) -> bool:
 
     Why it exists: the conv-lowered extraction births the [N, P, L] tensor
     with L minor — the layout every consumer matmul wants — so the
-    slice-form stack+reshape relayout copies never exist.  MEASURED
-    (flagship, v5e-1, 2026-08-18): copies bucket 245.7 -> 128.5us/step as
-    predicted, BUT the extraction conv and its transposed-conv backward
-    run on C=10-minor image layouts (128-lane padding tax) and add
-    +224us/step of MXU-bucket time — net 805.8 -> 782.0 steps/s.  The
-    slice form's relayouts are the cheaper evil, same verdict the
-    minor-axis-concat experiment reached from the other side.  OFF by
-    default; ``DEEPCGP_PATCH_ORDER=native`` re-enables for A/B on other
-    shapes (grad/ELBO equivalence verified at f64 reassociation level).
+    slice-form stack+reshape relayout copies never exist.  OFF by default;
+    ``DEEPCGP_PATCH_ORDER=native`` turns it on (grad/ELBO equivalence
+    verified at f64 reassociation level).
     """
-    import os
-
     from deepcgp_tpu.models.base_kernels import RBF, ArcCosine
     from deepcgp_tpu.models.views import FullView
     if os.environ.get('DEEPCGP_PATCH_ORDER', 'tf') != 'native':
@@ -82,13 +74,7 @@ class MultiOutputConvKernel:
 
     def Kuf_PNM(self, Z: jax.Array, PNL_patches: jax.Array) -> jax.Array:
         """[P, N, M]: the natural (and M-minor, layout-friendly) orientation
-        the batched kernel evaluation produces.
-
-        (Scalar-lengthscale RBF layers normally never reach this: the layer
-        computes Kuf straight from the image as a convolution with Z as
-        filters — ops/conv_cross.py — which is what the round-1 Pallas RBF
-        kernel was trying to approximate; that kernel measured perf-neutral
-        and was removed in round 2, see PARITY.md.)"""
+        the batched kernel evaluation produces."""
         return self.base_kernel.K(PNL_patches, Z[None])  # [P, N, M]
 
     def Kuf(self, Z: jax.Array, PNL_patches: jax.Array) -> jax.Array:
@@ -131,58 +117,15 @@ class AdditivePatchKernel:
     def _native_order(self) -> bool:
         return native_patch_order_ok(self.base_kernel, self.view)
 
-    def _pallas_order(self) -> bool:
-        """True when patches come L-minor from the Pallas extraction in
-        TRANSPOSED patch order (ops/pallas_patches.py).  Legal for this
-        class unconditionally: every consumer reduces over P against
-        :meth:`_weights` (K/Kdiag grams pair same-position patches of
-        consistently-ordered extractions; Kzx weights are permuted), and
-        the within-patch L order is unchanged so Z needs no permutation."""
-        from deepcgp_tpu.ops import pallas_patches
-        return (not self._native_order()
-                and pallas_patches.supports(self.view))
-
-    def _weights(self) -> jax.Array:
-        """patch_weights in the order :meth:`_patches` produces (stored
-        TF-ordered for checkpoint/init parity)."""
-        if self._pallas_order():
-            from deepcgp_tpu.ops import pallas_patches
-            perm = pallas_patches.transposed_patch_perm(
-                self.view.out_image_height, self.view.out_image_width)
-            return jnp.take(self.patch_weights, jnp.asarray(perm), axis=0)
-        return self.patch_weights
-
     def _patches(self, ND_X: jax.Array) -> jax.Array:
-        """[N, P, L] — Pallas transposed-order extraction on the hot path
-        (L-minor from birth, see ops/pallas_patches.py), else NATIVE
-        (C, fh, fw) element order whenever the kernel math permits (see
-        :func:`native_patch_order_ok`), else TF order.  Every in-class
-        consumer is order-consistent: grams pair patches with patches,
-        cross-covariances pair them with :meth:`_Z_patch_order`-permuted
-        inducing patches, and P-weighted sums use :meth:`_weights`."""
+        """[N, P, L] — NATIVE (C, fh, fw) element order whenever the kernel
+        math permits (see :func:`native_patch_order_ok`), else TF order.
+        Every in-class consumer is order-consistent: grams pair patches with
+        patches, and cross-covariances pair them with
+        :meth:`_Z_patch_order`-permuted inducing patches."""
         N = ND_X.shape[0]
         H, W = self.view.input_size
         NHWC = ND_X.reshape(N, H, W, self.view.feature_maps)
-        if self._pallas_order():
-            from deepcgp_tpu.ops.pallas_patches import \
-                extract_patches_transposed
-            # DEEPCGP_BF16_PATCHES=1: emit the im2col tensor bf16 (halves
-            # its HBM footprint — [320,36,250] flagship / [1280,576,25]
-            # m1024).  Scalar-RBF only: its Kdiag never reads patches and
-            # the cross matmuls run DEFAULT precision, whose MXU operands
-            # round to bf16 anyway; norms upcast in their epilogues
-            # (ops/distances.py), and the ConvKernel gram path restores
-            # f32 before its HIGHEST self-gram.
-            out_dtype = None
-            from deepcgp_tpu.models.base_kernels import RBF
-            if (os.environ.get('DEEPCGP_BF16_PATCHES', '0') == '1'
-                    and isinstance(self.base_kernel, RBF)
-                    and jnp.ndim(self.base_kernel.raw_lengthscales) == 0
-                    and NHWC.dtype == jnp.float32):
-                out_dtype = jnp.bfloat16
-            return extract_patches_transposed(
-                NHWC, self.view.filter_size, self.view.stride,
-                self.view.dilation, out_dtype)
         if self._native_order():
             return self.view.extract_patches_NPL_native(NHWC)
         return self.view.extract_patches_NPL(NHWC)
@@ -212,7 +155,7 @@ class AdditivePatchKernel:
         else:
             P2 = jnp.swapaxes(self._patches(ND_X2), 0, 1)
             PNN = self.base_kernel.K(P1, P2)                    # [P, N, N2]
-        PNN = PNN * self._weights()[:, None, None]
+        PNN = PNN * self.patch_weights[:, None, None]
         return jnp.mean(PNN, axis=0)
 
     def Kdiag(self, ND_X: jax.Array,
@@ -227,7 +170,7 @@ class AdditivePatchKernel:
             patches = self._patches(ND_X)
         P1 = jnp.swapaxes(patches, 0, 1)                        # [P, N, L]
         PN = self.base_kernel.Kdiag(P1)                          # [P, N]
-        return jnp.mean(PN * self._weights()[:, None], axis=0)
+        return jnp.mean(PN * self.patch_weights[:, None], axis=0)
 
     def _kdiag_needs_patches(self) -> bool:
         from deepcgp_tpu.models.base_kernels import RBF
@@ -236,49 +179,28 @@ class AdditivePatchKernel:
     def Kzx_NM_and_Kdiag(self, Z: jax.Array, ND_X: jax.Array) -> tuple:
         """(Kzx [N, M], Kdiag [N]) off ONE shared patch extraction — the
         per-step pair the last layer evaluates (`conv_gp/kernels.py:108-133`
-        via `conv_gp/models.py:192-198`).  XLA CSE'd the two slice-form
-        extractions into one; the Pallas extraction is a custom call it
-        will not CSE, so the sharing is explicit here.
-
-        Scalar-RBF over a FullView goes through the FUSED Pallas kernel
-        (ops/pallas_cross.py): extraction, cross-covariance, exp and the
-        patch sums run in one pass per direction and the [N, P, L] /
-        [N, P, M] tensors never exist in HBM — forward or backward (the
-        round-5 bytes audit attributed 35% of the flagship step to their
-        materialized round trips)."""
-        from deepcgp_tpu.ops import conv_cross, pallas_cross
-        if (pallas_cross.kernel_supported(self)
-                and pallas_cross.supported_for(self, Z.shape[0],
-                                               ND_X.shape[0])):
-            return pallas_cross.kzx_and_kdiag(self, Z, ND_X)
+        via `conv_gp/models.py:192-198`)."""
+        from deepcgp_tpu.ops import conv_cross
         patches = None
         if (self._kdiag_needs_patches()
                 or not conv_cross.supports(self.base_kernel, self.view)):
             patches = self._patches(ND_X)
         NPM = self._patch_kernel_NPM(ND_X, Z, patches=patches)
-        # The weight vector must match the NPM producer's patch order: the
-        # conv_cross form emits row-major (TF) patch positions, while
-        # _patches may be in Pallas-extraction order (see _weights).
-        w = self._npm_weights(via_conv_cross=patches is None)
-        return jnp.einsum('npm,p->nm', NPM, w), self.Kdiag(ND_X, patches)
+        return jnp.einsum('npm,p->nm', NPM, self._npm_weights()), \
+            self.Kdiag(ND_X, patches)
 
-    def _npm_weights(self, *, via_conv_cross: bool) -> jax.Array:
-        """patch_weights/P in the patch order of :meth:`_patch_kernel_NPM`'s
-        output: conv_cross (ops/conv_cross.py:78) enumerates patches
-        row-major regardless of the extraction backend, so the Pallas
-        permutation of :meth:`_weights` must NOT apply there."""
-        w = (self.patch_weights if via_conv_cross else self._weights())
-        return w / self.patch_weights.shape[0]
+    def _npm_weights(self) -> jax.Array:
+        """patch_weights / P: the weighted patch mean of an [N, P, M]
+        kernel matrix."""
+        return self.patch_weights / self.patch_weights.shape[0]
 
     def _patch_kernel_NPM(self, ND_X: jax.Array, Z: jax.Array,
                           patches: jax.Array | None = None) -> jax.Array:
         """[N, P, M] = k(x[p], z_m) per patch position.  Scalar-RBF over a
-        FullView goes through the conv formulation (ops/conv_cross.py):
-        the im2col tensor never hits HBM, which removes ~0.5ms/step of
-        layout copies at the flagship shape.  ``patches`` (an extraction in
-        :meth:`_patches` order) lets callers share ONE extraction across
-        Kzx and Kdiag — XLA does not CSE the Pallas extraction custom
-        calls the way it CSE'd the slice-form fusions."""
+        FullView can go through the conv formulation (ops/conv_cross.py,
+        opt-in), where the im2col tensor never hits HBM.  ``patches`` (an
+        extraction in :meth:`_patches` order) lets callers share ONE
+        extraction across Kzx and Kdiag."""
         from deepcgp_tpu.ops import conv_cross
         if patches is None and conv_cross.supports(self.base_kernel,
                                                    self.view):
@@ -295,12 +217,9 @@ class AdditivePatchKernel:
     def Kzx_NM(self, Z: jax.Array, ND_X: jax.Array) -> jax.Array:
         """[N, M] = mean_p w_p k(x[p], Z) — M-minor orientation (matches the
         conditional's pnm layout; avoids retiling the [M, N*P] base-kernel
-        matrix, which profiled as the dominant copy at M=1024)."""
-        from deepcgp_tpu.ops import conv_cross
+        matrix)."""
         NPM = self._patch_kernel_NPM(ND_X, Z)                    # [N, P, M]
-        w = self._npm_weights(via_conv_cross=conv_cross.supports(
-            self.base_kernel, self.view))
-        return jnp.einsum('npm,p->nm', NPM, w)
+        return jnp.einsum('npm,p->nm', NPM, self._npm_weights())
 
     def Kzx(self, Z: jax.Array, ND_X: jax.Array) -> jax.Array:
         return self.Kzx_NM(Z, ND_X).T
@@ -326,7 +245,7 @@ class ConvKernel(AdditivePatchKernel):
         N1 = ND_X.shape[0]
         N2 = N1 if ND_X2 is None else ND_X2.shape[0]
         Kfull = Kfull.reshape(N1, pc, N2, pc)
-        w = self._weights()
+        w = self.patch_weights
         Kfull = Kfull * (w[None, :, None, None] * w[None, None, None, :])
         return jnp.sum(Kfull, axis=(1, 3)) / (pc ** 2)
 
@@ -346,7 +265,7 @@ class ConvKernel(AdditivePatchKernel):
         if patches is None:
             patches = self._patches_any_order(ND_X)              # [N, P, L]
         NPP = self.base_kernel.K(patches, patches)               # [N, P, P]
-        w = self._weights()
+        w = self.patch_weights
         W = w[:, None] * w[None, :]
         return jnp.sum(NPP * W, axis=(1, 2)) / (pc ** 2)
 

@@ -11,7 +11,7 @@ formulation; SURVEY.md §2 external row):
 * ``predict_y`` (S-sample predictive class probabilities),
 * ``propagate`` (samples + means + vars per layer, for observability).
 
-TPU-first details:
+Schedule details:
 * layer Kuu Choleskys are computed once per step and shared across the S
   samples (``precompute``);
 * the first layer's conditional depends only on the minibatch X (identical
@@ -26,9 +26,9 @@ import typing
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from deepcgp_tpu.config import settings
+from deepcgp_tpu.utils import struct
 
 
 def _reparameterize(mean: jax.Array, var: jax.Array,
@@ -42,9 +42,8 @@ def mc_normal(key: jax.Array, shape, dtype) -> jax.Array:
     """Standard normals for Monte-Carlo sampling, drawn through the 'rbg'
     bit generator (XLA ``RngBitGenerator``).
 
-    The default threefry generator costs real MXU-idle time on TPU —
-    profiled at ~265us/step (11%) of the flagship training step just for
-    sampling bits; rbg generates bits at near-memory speed.  The rbg key is
+    rbg generates bits at near-memory speed, where the default threefry
+    generator spends arithmetic on every draw.  The rbg key is
     derived deterministically from the (threefry) key's data, so explicit
     key threading, reproducibility given a seed, and trajectory parity with
     the oracle trainer (which draws through this same helper) are all
@@ -84,11 +83,10 @@ class DGP:
         """Per-layer caches with all same-shape Kuu grams (conditional +
         frozen KL priors) factorized — WITH their explicit factor inverses
         (linalg.chol_with_inv) — in ONE batched call per distinct M.
-        Factorization custom calls are latency-bound and serial in the
-        batch on TPU, so the stack shares one batch-parallel Pallas
-        factorization; the inverses turn every downstream triangular
-        solve (conditional + gauss_kl, forward AND backward) into
-        MXU matmuls at the gate-validated inverse-apply precision."""
+        Factorization calls are latency-bound, so the stack shares one
+        batched factorization; the inverses turn every downstream
+        triangular solve (conditional + gauss_kl, forward AND backward)
+        into matmuls at the inverse-apply precision."""
         from deepcgp_tpu.ops import linalg
         grams = [layer.kuu_grams() for layer in self.layers]
         flat = [g for gs in grams for g in gs]

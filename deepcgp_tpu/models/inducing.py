@@ -29,9 +29,8 @@ def sample_patches(key: jax.Array, NHWC_X: jax.Array, count: int,
     ys = np.asarray(jax.random.randint(k2, (count,), 0, H - patch_size))
     xs = np.asarray(jax.random.randint(k3, (count,), 0, W - patch_size))
 
-    # Host-side gather: a device gather of `count` full images pads the C=3
-    # axis to the 128-wide lane tile and OOMs HBM; this is one-shot init-time
-    # work (the reference also does it on the host, kernels.py:139-159).
+    # Host-side gather: one-shot init-time work on arrays already on the
+    # host (the reference also does it there, kernels.py:139-159).
     # Runs in the native C++ pipeline when built, numpy otherwise.
     from deepcgp_tpu import native
     patches = native.sample_patches(np.asarray(NHWC_X), img_idx, ys, xs,

@@ -19,7 +19,8 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from deepcgp_tpu.utils import struct
 
 
 def _gh_points(n: int, dtype) -> tuple[jax.Array, jax.Array]:

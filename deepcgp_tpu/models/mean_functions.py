@@ -14,8 +14,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import lax
+
+from deepcgp_tpu.utils import struct
 
 
 @struct.dataclass

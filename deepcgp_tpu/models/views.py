@@ -7,7 +7,7 @@ closed over by jitted functions.
 
 Internal layout note: the reference works patch-major ([P, N, L],
 `conv_gp/views.py:40-44`); this rebuild prefers batch-major [N, P, L] (the
-natural layout for one fused TPU matmul over all patches) and transposes at
+natural layout for one fused matmul over all patches) and transposes at
 the few parity seams.
 """
 

@@ -1,6 +1,6 @@
 // Native host-side data pipeline for deepcgp_tpu.
 //
-// The TPU compute path is JAX/XLA/Pallas; everything that runs on the host
+// The device compute path is JAX/XLA; everything that runs on the host
 // CPU around it — dataset standardisation, row gathers for minibatch
 // assembly, patch extraction / random patch sampling for inducing-point
 // initialisation — lives here as a small C++ core exposed through a C ABI

@@ -1,16 +1,15 @@
 """Multi-output sparse variational GP conditional.
 
-TPU-native rewrite of `conv_gp/conditionals.py:6-67`: the posterior
+JAX rewrite of `conv_gp/conditionals.py:6-67`: the posterior
 q(g1) = \\int q(g2) p(g1|g2) shared across P patch positions, where
 p(g2) = N(0, Kmm), q(g2) = N(f, q_sqrt q_sqrt^T).
 
-Differences from the reference (semantics identical, schedule TPU-first):
+Differences from the reference (semantics identical, schedule reworked):
 
 * the per-patch ``tf.map_fn`` triangular solves
   (`conv_gp/conditionals.py:31-33,44-47`) become one wide solve with
   P*N right-hand sides;
-* the q_sqrt term (`conv_gp/conditionals.py:53-65`) is a single einsum the
-  XLA compiler maps to MXU matmuls;
+* the q_sqrt term (`conv_gp/conditionals.py:53-65`) is a single einsum;
 * the Cholesky of Kmm can be passed in precomputed (``Lm``) so a layer can
   share it across the S Monte-Carlo samples of the doubly-stochastic DGP
   (the reference recomputes it per sample path, §3.3 of SURVEY.md).
@@ -46,10 +45,9 @@ def multi_output_conditional(
 ):
     """``layout``: 'pmn' takes Kmn as [P, M, N] (the reference layout);
     'pnm' takes [P, N, M].  Internally everything runs M-minor ('pnm'):
-    M is a lane-tile multiple in practice while N is a small batch, so
-    keeping M innermost avoids the 128-lane padding and the layout-change
-    copies that otherwise dominate the step (measured ~2.1ms of a 4.4ms
-    step as copy/reshape ops in the profiler with the M-in-middle layout)."""
+    M is large in practice while N is a small batch, so keeping M
+    innermost avoids the layout-change copies that otherwise dominate the
+    step."""
     if layout == 'pmn':
         Kmn = jnp.swapaxes(Kmn, -1, -2)                      # -> [P, N, M]
     if Lm is None:
@@ -61,7 +59,7 @@ def multi_output_conditional(
     # Row form of A = Lm^-1 Kmn per patch, M-minor (fold [P, N, M] ->
     # [P*N, M]; the fold is layout-free since M is already innermost).
     # With a precomputed factor inverse (linalg.chol_with_inv) the solve
-    # is ONE MXU matmul at the inverse-apply precision
+    # is ONE matmul at the inverse-apply precision
     # (linalg._INV_PRECISION, gate-validated vs the TRSM custom call it
     # replaces) — no InvertDiagBlocks / block-panel latency, and a
     # backward that is again a matmul instead of another custom-call
@@ -104,14 +102,13 @@ def multi_output_conditional(
             fvar = fvar + jnp.einsum('rpns,rpks->rpnk', LTA, LTA)
         else:
             # q-term[r] = rowwise ||A L_r||^2 (the LTA term of
-            # conditionals.py:53-65), computed as ONE wide MXU matmul
+            # conditionals.py:53-65), computed as ONE wide matmul
             # [P*N, M] @ [M, R*M] with the square-reduce fused onto its
             # M-minor output.  The batched-einsum form ('rms,pnm->rpns')
-            # broadcast A across the R batch dimension and stacked the
-            # result R-major — profiling showed ~0.7ms/step of pure
-            # layout copies around that [R, P, N, M] intermediate at the
-            # flagship shape; a scan over R starves the MXU instead
-            # (measured 144 vs 295 steps/s).  The wide form reads A once,
+            # broadcasts A across the R batch dimension and stacks the
+            # result R-major, with layout copies around that [R, P, N, M]
+            # intermediate; a scan over R starves the matmul units
+            # instead.  The wide form reads A once,
             # writes LTA once in its native layout, and the reduce is
             # over the minor axis.
             P, N, M = A.shape
@@ -137,13 +134,14 @@ def multi_output_conditional(
                 qterm.reshape(P, N, -1), (2, 0, 1))           # [R, P, N]
 
     if not full_cov:
-        # TPU f32 guard: with an ill-conditioned Kmm (near-duplicate
+        # f32 guard: with an ill-conditioned Kmm (near-duplicate
         # inducing patches — e.g. k-means centroids on the coarse UCI
         # digits set), the inverse-apply matmul noise scales like
         # ||Lm_inv||^2 * eps * Knn and can exceed a small true posterior
-        # variance, pushing the Knn - ||A||^2 diagonal negative (measured
-        # -5e-3 on TPU vs the +9e-4 exact-f32 value on the digits 2-layer
-        # config, which then NaN'd sqrt(var) in sampling from step one).
+        # variance, pushing the Knn - ||A||^2 diagonal negative (observed
+        # -5e-3 against the +9e-4 exact value on the digits 2-layer config
+        # with reduced-precision inverse applies, which then NaN'd
+        # sqrt(var) in sampling from step one).
         # The diagonal is a marginal variance, >= 0 by definition and
         # exactly 0 at an inducing input in the noiseless limit, so 0 is
         # the numerically-correct clamp, not a fudge; the q_sqrt term

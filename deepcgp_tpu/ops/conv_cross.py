@@ -13,11 +13,9 @@ inducing patches as its filters and the im2col tensor never reaches HBM.
 This won round 2 (the last layer then ran vmapped over the S samples and
 materialized a patch tensor per sample); in round 3 the S axis is folded
 into the batch and extraction is slice-based and shared with Kdiag, after
-which the image-layout convs LOSE to plain patch matmuls — C-minor conv
-inputs pad to the 128-lane tile (C=3 -> 42x read inflation; measured 15.8
-vs 148 TFLOP/s, 458 vs 499 steps/s end-to-end) — so the default path is
-extraction + matmul and this module is enabled only by
-``DEEPCGP_CONV_CROSS=1`` (see :func:`supports`).
+which the image-layout convs measured slower than plain patch matmuls on
+earlier hardware — so the default path is extraction + matmul and this
+module is enabled only by ``DEEPCGP_CONV_CROSS=1`` (see :func:`supports`).
 
 Patch/filter element ordering is the TF one the rest of the library uses:
 Z rows are (fh, fw, C) row-major, so Z.reshape(M, fh, fw, C) -> HWIO.
@@ -57,9 +55,8 @@ def rbf_cross_from_images(NHWC_X: jax.Array, Z: jax.Array, variance,
     # X^2 elementwise (exact f32), then two rank-1 ones-convs over H and W.
     # Exactness: the old extraction path computed patch norms elementwise in
     # f32 and this replaces it, so no bf16 error is stacked on top of the
-    # cross term's (ADVICE r2).  Cost: the dense f*f*C ones-conv at HIGHEST
-    # measured 56us/step on the flagship; the separable form does f+f MACs
-    # per output instead of f*f*C.
+    # cross term's.  The separable form does f+f MACs per output instead of
+    # the dense ones-conv's f*f*C.
     xsq = jnp.sum(X * X, axis=3, keepdims=True)                # [N, H, W, 1]
     ones_h = jnp.ones((f, 1, 1, 1), X.dtype)
     ones_w = jnp.ones((1, f, 1, 1), X.dtype)
@@ -87,15 +84,12 @@ def supports(base_kernel, view) -> bool:
     """OPT-IN (DEEPCGP_CONV_CROSS=1); the default cross-covariance path is
     patch extraction + matmul.
 
-    History: the conv form won round 2 (430 vs 298 steps/s) when the last
-    layer ran under vmap-over-S and extraction materialized an im2col
-    tensor per sample.  Round 3 folded S into the batch axis and switched
-    Kdiag to slice extraction — the patches are then materialized ONCE and
-    shared, the matmul runs M-minor at near-peak MXU rates, while the
-    image-layout convs pay the 128-lane padding tax on their C-minor
-    inputs (C=3/10 pads to 128; measured 15.8 TFLOP/s vs 148 for the
-    matmul, 458 vs 499 steps/s end-to-end).  Applies only to
-    scalar-lengthscale RBF over a dense FullView, as before."""
+    History: the conv form won while the last layer ran under vmap-over-S
+    and extraction materialized an im2col tensor per sample.  Once S was
+    folded into the batch axis and Kdiag switched to slice extraction, the
+    patches are materialized ONCE and shared, and the patch matmul won.
+    Whether that holds on the H100 is open (ROADMAP C3).  Applies only to
+    scalar-lengthscale RBF over a dense FullView."""
     from deepcgp_tpu.models.base_kernels import RBF
     from deepcgp_tpu.models.views import FullView
     return (_ENABLED

@@ -2,8 +2,8 @@
 
 These replace the squared-distance + matmul blocks inside gpflow's stationary
 kernels (the dominant FLOPs of the reference, called from
-`conv_gp/kernels.py:46-133` and `conv_gp/layers.py:20-49`).  On TPU the
-``X @ X2^T`` term is the MXU matmul; the norms fuse into it as epilogues.
+`conv_gp/kernels.py:46-133` and `conv_gp/layers.py:20-49`).  The
+``X @ X2^T`` term is the matmul; the norms fuse into it as epilogues.
 """
 
 from __future__ import annotations
@@ -15,24 +15,18 @@ import jax.numpy as jnp
 def square_distance(X: jax.Array, X2: jax.Array | None = None) -> jax.Array:
     """||x_i - x2_j||^2 for rows of X [..., N, D] and X2 [..., N2, D].
 
-    Uses the expanded form Xs - 2 X X2^T + X2s (one MXU matmul), clamped at
+    Uses the expanded form Xs - 2 X X2^T + X2s (one matmul), clamped at
     zero for f32 safety (the reference runs f64 and skips the clamp).
 
     SELF-grams (X2 is None) run the matmul at Precision.HIGHEST: they become
-    Kuu/Kff matrices whose Choleskys must stay positive definite, and the
-    TPU's default single-pass-bf16 f32 matmul carries ~0.4% relative error —
-    enough to swamp the 1e-3 jitter and NaN the factorization whenever the
-    gram is ill-conditioned (observed: dense 1-D inducing points in the
+    Kuu/Kff matrices whose Choleskys must stay positive definite, and a
+    DEFAULT-precision f32 matmul (TF32 on the H100) carries ~1e-3 relative
+    error — enough to swamp the 1e-3 jitter and NaN the factorization
+    whenever the gram is ill-conditioned (observed: dense 1-D inducing points in the
     regression example; Kuu is O(M^2 D) flops, so the exact passes are
     free).  Cross-covariances keep the fast default: they never get
     factorized, and they are where the step's FLOPs live.
     """
-    # bf16 inputs (DEEPCGP_BF16_PATCHES im2col): the cross matmul's MXU
-    # operands round to bf16 at DEFAULT precision anyway, but the NORM
-    # epilogues and any HIGHEST self-gram must accumulate/multiply in f32
-    # — upcast (fuses into the reduce/matmul prologue, no materialized
-    # f32 copy of the tensor).
-    Xf = X.astype(jnp.float32) if X.dtype == jnp.bfloat16 else X
     if X2 is None:
         # CENTER the rows before the self-gram: pairwise distances are
         # translation-invariant, so subtracting the (stop-gradient) row
@@ -50,15 +44,14 @@ def square_distance(X: jax.Array, X2: jax.Array | None = None) -> jax.Array:
         # (the step's FLOPs) stay untouched and unprotected (their noise
         # is absorbed by the conditional's variance clamp, never by a
         # Cholesky).
-        Xf = Xf - jax.lax.stop_gradient(Xf.mean(axis=-2, keepdims=True))
-        Xs = jnp.sum(jnp.square(Xf), axis=-1)
+        X = X - jax.lax.stop_gradient(X.mean(axis=-2, keepdims=True))
+        Xs = jnp.sum(jnp.square(X), axis=-1)
         from deepcgp_tpu.ops.linalg import gram_syrk
-        cross = gram_syrk(Xf)   # HIGHEST fwd; one-matmul HIGH bwd
+        cross = gram_syrk(X)    # HIGHEST fwd; one-matmul bwd
         X2s = Xs
     else:
-        Xs = jnp.sum(jnp.square(Xf), axis=-1)
-        X2f = X2.astype(jnp.float32) if X2.dtype == jnp.bfloat16 else X2
-        cross = jnp.matmul(Xf, jnp.swapaxes(X2f, -1, -2))
-        X2s = jnp.sum(jnp.square(X2f), axis=-1)
+        Xs = jnp.sum(jnp.square(X), axis=-1)
+        cross = jnp.matmul(X, jnp.swapaxes(X2, -1, -2))
+        X2s = jnp.sum(jnp.square(X2), axis=-1)
     d2 = Xs[..., :, None] - 2.0 * cross + X2s[..., None, :]
     return jnp.maximum(d2, 0.0)

@@ -3,7 +3,7 @@
 The reference's model build runs sklearn k-means on the host — the CPU hot
 spot of initialisation (`conv_gp/kernels.py:161-164`, `conv_gp/models.py:24-27`,
 SURVEY.md §3.2).  Here Lloyd's algorithm is jitted: the assignment step is one
-[N, K] distance matmul on the MXU per iteration.
+[N, K] distance matmul per iteration.
 
 Init strategies mirror the reference: ``random`` for inducing patches
 (`conv_gp/kernels.py:161-162`), ``k-means++`` for the last-layer RBF inducing

@@ -1,14 +1,13 @@
 """Linear-algebra primitives for sparse variational GP layers.
 
-TPU-native replacements for the reference's TF linalg surface
+Replacements for the reference's TF linalg surface
 (`conv_gp/conditionals.py:29-47`, `conv_gp/layers.py:137-158`):
 
 * jittered Cholesky (reference adds jitter at Kuu construction,
   `conv_gp/layers.py:18-21`);
 * many-right-hand-side triangular solves replacing the per-patch
   ``tf.map_fn(tf.matrix_triangular_solve)`` loops
-  (`conv_gp/conditionals.py:31-33,44-47`) with a single large solve that
-  XLA maps onto the MXU;
+  (`conv_gp/conditionals.py:31-33,44-47`) with a single large solve;
 * ``gauss_kl`` replacing gpflow's (`conv_gp/layers.py:137-147` call site).
 """
 
@@ -49,7 +48,7 @@ def solve_triangular_mrhs(L: jax.Array, B: jax.Array, *, lower: bool = True,
 
     The reference loops a triangular solve over the patch axis with
     ``tf.map_fn`` (`conv_gp/conditionals.py:31-33`).  Here all batch axes are
-    folded into one wide right-hand side so the TPU sees one big solve.
+    folded into one wide right-hand side so the device sees one big solve.
     """
     M = L.shape[-1]
     batch_shape = B.shape[:-2]
@@ -68,33 +67,22 @@ def solve_triangular_mrhs(L: jax.Array, B: jax.Array, *, lower: bool = True,
     return X
 
 
-# Precision for every matmul that APPLIES a triangular inverse (or backs
-# one up through the Cholesky VJP).  The round-1 `tri_inverse` experiment
-# used DEFAULT-precision matmuls — single-pass bf16 on TPU — whose ~4e-3
-# relative error, amplified by the factor's condition number, NaN'd f32
-# training: that failure was the precision, not the inverse.  HIGH (bf16x3,
-# ~f32-level multiply error) measured indistinguishable from HIGHEST
-# (bf16x6) on the on-TPU ELBO A/B gate and the NatGrad soak while running
-# the MXU ~2x faster — see PARITY.md; DEEPCGP_INV_PRECISION overrides for
-# re-running that gate.
-_INV_PRECISION = {
+# Precision of every matmul that APPLIES a triangular inverse, and of the
+# chol_with_inv custom-VJP matmuls.  On the H100 both DEFAULT and HIGH run a
+# float32 product as TF32 (10-bit mantissa, ~1e-3 relative error); HIGHEST
+# is the full-float32 product.  Round 1 showed that inverse applies at
+# ~1e-3 relative error, amplified by the factor's condition number, make
+# float32 training produce NaN, so these stay at float32 accuracy.
+# DEEPCGP_INV_PRECISION / DEEPCGP_CHOL_VJP_PRECISION override them.
+_PRECISIONS = {
     'default': lax.Precision.DEFAULT,
     'high': lax.Precision.HIGH,
     'highest': lax.Precision.HIGHEST,
-}[os.environ.get('DEEPCGP_INV_PRECISION', 'high')]
-
-# Precision of the chol_with_inv custom-VJP matmuls.  These produce
-# GRADIENTS only (Kbar -> dZ / kernel hyperparameters) — they never feed a
-# factorization or a predicted value — so they tolerate the single-pass
-# bf16 rate the same way minibatch+MC gradient noise (~10%/step) dwarfs a
-# ~0.4% multiplicative matmul error.  Candidate 'default' is gated on-TPU
-# with tools/precision_gate.py (grad-norm point diff) + tools/soak.py
-# before flipping; CPU f32 is exact at every setting.
-_CHOL_VJP_PRECISION = {
-    'default': lax.Precision.DEFAULT,
-    'high': lax.Precision.HIGH,
-    'highest': lax.Precision.HIGHEST,
-}[os.environ.get('DEEPCGP_CHOL_VJP_PRECISION', 'high')]
+}
+_INV_PRECISION = _PRECISIONS[os.environ.get('DEEPCGP_INV_PRECISION',
+                                            'highest')]
+_CHOL_VJP_PRECISION = _PRECISIONS[os.environ.get('DEEPCGP_CHOL_VJP_PRECISION',
+                                                 'highest')]
 
 
 def _mm(a: jax.Array, b: jax.Array) -> jax.Array:
@@ -103,43 +91,11 @@ def _mm(a: jax.Array, b: jax.Array) -> jax.Array:
 
 
 def _chol_inv_impl(K: jax.Array):
-    """(chol(K), chol(K)^-1) for K [..., M, M] SPD (0 or 1 batch dims).
-
-    On TPU/f32 with a lane-tile-multiple M the pair comes from the Pallas
-    batch-parallel factorization (`ops/pallas_linalg.py` — XLA's batched
-    cholesky/TRSM custom calls execute the batch SERIALLY on TPU, and its
-    TRSM would be a second latency-bound call); everywhere else (CPU
-    tests, f64 oracles, odd M) it is the plain XLA Cholesky plus one
-    M-rhs triangular solve.  Both give NaN on a non-PD input, so callers'
-    finite checks keep working."""
-    from deepcgp_tpu.ops import pallas_linalg
-    # DEEPCGP_PALLAS_FORCE=1 runs the Pallas path (interpret mode) on CPU
-    # meshes so the pjit+pallas_call composition is CI-covered.
-    tpu_like = (jax.default_backend() == 'tpu' or pallas_linalg.forced())
-    M = K.shape[-1]
-    if (K.dtype == jnp.float32 and M % 64 == 0 and M <= 512
-            and K.ndim in (2, 3) and tpu_like):
-        KB = K[None] if K.ndim == 2 else K
-        L, Linv = pallas_linalg.chol_inv_batched(KB)
-        return (L[0], Linv[0]) if K.ndim == 2 else (L, Linv)
-    if (K.dtype == jnp.float32 and M > 512 and M % 128 == 0
-            and ((M // 128) & (M // 128 - 1)) == 0
-            and tpu_like):
-        # Large M: XLA's eye-TRSM inverse sweeps [128,128] panels SERIALLY
-        # (m1024: TRSM 138us + InvertDiagBlocks 81us/step) — L^-1 comes
-        # from batched block doubling instead.  The FACTOR likewise: XLA's
-        # [1024,1024] chol custom call is a serial block-panel recurrence
-        # (~206us/step); the factor-only Pallas driver (near-free b=1 base
-        # cases + MXU panel einsums) replaces it.  DEEPCGP_PALLAS_BIGCHOL=0
-        # restores the XLA factor for A/B.
-        KB = K[None] if K.ndim == 2 else K.reshape((-1,) + K.shape[-2:])
-        if os.environ.get('DEEPCGP_PALLAS_BIGCHOL', '1') != '0':
-            L = pallas_linalg.chol_factor_batched(KB).reshape(K.shape)
-        else:
-            L = jnp.linalg.cholesky(K)
-        return L, pallas_linalg.tri_inv_doubling(L)
+    """(chol(K), chol(K)^-1) for K [..., M, M] SPD: XLA's Cholesky plus one
+    M-rhs triangular solve against the identity.  Both give NaN on a non-PD
+    input, so callers' finite checks keep working."""
     L = jnp.linalg.cholesky(K)
-    eye = jnp.broadcast_to(jnp.eye(M, dtype=K.dtype), K.shape)
+    eye = jnp.broadcast_to(jnp.eye(K.shape[-1], dtype=K.dtype), K.shape)
     Linv = lax.linalg.triangular_solve(L, eye, left_side=True, lower=True)
     return L, Linv
 
@@ -148,7 +104,7 @@ def _chol_inv_impl(K: jax.Array):
 def chol_with_inv(K: jax.Array):
     """Differentiable (L, L^-1) of an SPD K — the conditional's wide
     triangular-solve chains (`conv_gp/conditionals.py:31-47`) become plain
-    MXU matmuls against L^-1, and this custom VJP keeps the BACKWARD free
+    matmuls against L^-1, and this custom VJP keeps the BACKWARD free
     of triangular-solve custom calls too: with L^-1 in hand, the Cholesky
     reverse is pure matmuls,
 
@@ -198,7 +154,7 @@ def tril_logdet(L: jax.Array) -> jax.Array:
     ``sum(log(L*eye + (1-eye)))`` (round 2) keeps the gradient fusable but
     materializes the full [..., M, M] masked matrix as the backward
     residual — at M=1024 that is a 42MB write in forward plus a 42MB read
-    in backward (~86us + ~50us/step, tools/roofline.py m1024).  Only the
+    in backward.  Only the
     DIAGONAL is mathematically live in either direction: forward saves the
     [..., M] diagonal, backward broadcasts (g / diag) onto the diagonal —
     an eye-broadcast fusion that folds into the surrounding gradient
@@ -229,9 +185,8 @@ def syrk_sum(Lq: jax.Array) -> jax.Array:
     dLq2 = C^T Lq summing m) that are then added — 2x 2*R*M^3 flops.  The
     operands are the SAME tensor, so the exact cotangent collapses to
         dLq = (C + C^T) Lq
-    — one einsum against the (cheap, M^2) symmetrized cotangent.  At the
-    M=1024 bench config the two autodiff einsums were ~240us/step of MXU
-    time (tools/roofline.py); this halves them.  Exactness vs autodiff is
+    — one einsum against the (cheap, M^2) symmetrized cotangent, half the
+    backward arithmetic.  Exactness vs autodiff is
     pinned by test_numerics_core.py::test_syrk_sum_vjp."""
     return jnp.einsum('rmk,rnk->mn', Lq, Lq)
 
@@ -254,22 +209,18 @@ def gram_syrk(X: jax.Array) -> jax.Array:
     Cholesky-safe FORWARD and a cheap, single-matmul BACKWARD.
 
     Forward runs at Precision.HIGHEST: these grams become Kuu/Kff matrices
-    whose factorizations must stay positive definite (the single-pass-bf16
-    default's ~0.4% error swamps the jitter — see
+    whose factorizations must stay positive definite (a TF32 product's
+    ~1e-3 relative error swamps the jitter — see
     :func:`deepcgp_tpu.ops.distances.square_distance`).
 
     Backward: autodiff of ``matmul(X, X^T)`` emits TWO full-size matmuls
-    (dX = C X + C^T X) at the forward's bf16x6 rate.  The operands are the
-    SAME tensor, so the exact cotangent is ONE matmul against the
-    symmetrized cotangent,
+    (dX = C X + C^T X).  The operands are the SAME tensor, so the exact
+    cotangent is ONE matmul against the symmetrized cotangent,
 
         dX = (C + C^T) X,
 
-    and it runs at Precision.HIGH (bf16x3, ~f32 multiply error): gradients
-    feed the optimizer, never a factorization, so they do not need the
-    6-pass product.  Measured (m1024 bench, v5e): the self-gram source line
-    dropped 174.7 -> ~70us/step.  Exactness of the collapsed cotangent vs
-    plain autodiff is pinned by
+    at the chol_with_inv VJP precision.  Exactness of the collapsed
+    cotangent vs plain autodiff is pinned by
     test_numerics_core.py::test_gram_syrk_vjp."""
     return jnp.einsum('...nd,...md->...nm', X, X,
                       precision=lax.Precision.HIGHEST)
@@ -282,7 +233,7 @@ def _gram_syrk_fwd(X):
 def _gram_syrk_bwd(X, C):
     Csym = C + jnp.swapaxes(C, -1, -2)
     return (jnp.einsum('...nm,...md->...nd', Csym, X,
-                       precision=lax.Precision.HIGH),)
+                       precision=_CHOL_VJP_PRECISION),)
 
 
 gram_syrk.defvjp(_gram_syrk_fwd, _gram_syrk_bwd)
@@ -322,7 +273,7 @@ def gauss_kl(q_mu: jax.Array, q_sqrt: jax.Array,
         assert Lp is not None, "Lp_inv requires its factor Lp (for logdet)"
         # Inverse-matmul form (cache built by linalg.chol_with_inv): the
         # trace term tr(K^-1 T) = <Lp^-T Lp^-1, T> and the Mahalanobis
-        # solve both become inverse-apply-precision MXU matmuls — no
+        # solve both become inverse-apply-precision matmuls — no
         # triangular-solve custom call in forward OR backward (the VJP of
         # an einsum is einsums; Lp_inv's own backward is the matmul-only
         # chol_with_inv VJP).
@@ -339,21 +290,16 @@ def gauss_kl(q_mu: jax.Array, q_sqrt: jax.Array,
         # sum_r tr(K^-1 S_r) = tr(K^-1 T) with T = sum_r Lq_r Lq_r^T,
         # computed as tr(solve(Lp^T, solve(Lp, T))).  Equivalent to
         # ||Lp^-1 Lq||_F^2 summed over r, but the R-fold work moves from an
-        # R*M-rhs triangular solve (TRSM runs ~25 TF/s on this chip, and
-        # its VJP is ANOTHER R*M-rhs solve) into one MXU contraction; the
-        # remaining solves carry M rhs each, independent of R.  Profiled on
-        # the M=1024 config the old form was the single largest compute
-        # bucket (~700us fwd + its share of 1.1ms of solve-backward TRSM
-        # per step).
+        # R*M-rhs triangular solve (whose VJP is ANOTHER R*M-rhs solve) into
+        # one matmul contraction; the remaining solves carry M rhs each,
+        # independent of R.
         #
-        # T is ONE dot_general contracting over (r, k) — the earlier
-        # reshape-to-[M, R*M] matmul form materialized a {1,0}->{0,1}
-        # layout copy of the 40MB stack in BOTH directions at M=1024
-        # (~94us/step of pure data movement, tools/roofline.py).
+        # T is ONE dot_general contracting over (r, k): a reshape-to-
+        # [M, R*M] matmul form materializes a layout copy of the stack in
+        # both directions.
         T = syrk_sum(Lq)                                     # [M, M]
         # The Mahalanobis solve rides the SAME triangular-solve call as the
-        # trace term (T first: its block stays lane-aligned; the R-column
-        # q_mu tail is tiny) — TRSM custom calls are latency-bound, so one
+        # trace term (T first; the R-column q_mu tail is tiny) — one
         # [M, M+R]-rhs call beats an [M, M] plus an [M, R] call, and its
         # VJP is likewise one solve instead of two.
         V = lax.linalg.triangular_solve(

@@ -68,7 +68,7 @@ def extract_patches_native(NHWC_X: jax.Array, filter_size: int,
     conv lowering births the tensor with the L axis minor ({2,1,0}), exactly
     what the gram matmuls want, so the trailing reshape is a bitcast and
     none of the stack+reshape relayout copies of :func:`extract_patches`
-    appear (~96us/step of the flagship's copies bucket, trace 2026-08-18).
+    appear.
     """
     N, H, W, C = NHWC_X.shape
     Hout = out_size(H, filter_size, stride, dilation)

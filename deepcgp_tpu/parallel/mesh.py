@@ -1,11 +1,11 @@
 """Device mesh construction and sharding specs.
 
 The reference is strictly single-process/single-device (SURVEY.md §2.10), so
-all of this is new TPU-first design:
+all of this is new design:
 
 * ``data`` axis — the image batch (and with it the MC-sample work) is
-  sharded across chips; the SPMD partitioner inserts the gradient psum over
-  ICI automatically when the jitted train step consumes data-sharded inputs.
+  sharded across devices; the SPMD partitioner inserts the gradient psum
+  automatically when the jitted train step consumes data-sharded inputs.
 * ``model`` axis — the patch axis P (this workload's sequence axis,
   SURVEY.md §5.7) and the per-position GP axis R are sharded via
   ``with_sharding_constraint`` inside the layers (see

@@ -5,8 +5,8 @@ Pattern: each host loads only its shard of the training set
 (:func:`process_shard`), and per-host batches are assembled into one global
 device array across the mesh with
 :func:`host_local_to_global` (``jax.make_array_from_process_local_data``) —
-batch rows ride host->device PCIe once, never cross-host; gradient psums ride
-ICI/DCN inside the jitted step.
+batch rows ride host->device PCIe once, never cross-host; gradient psums run
+over the device interconnect inside the jitted step.
 
 Single-host (including this repo's CI and the one-chip bench) it all
 degenerates to identity slicing, so the same experiment code runs anywhere.

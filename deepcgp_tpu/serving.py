@@ -2,7 +2,7 @@
 
 The reference's only prediction surface is the accuracy logger's batched
 ``model.predict_y`` calls inside training (`conv_gp/utils/log.py:50-68`).
-For production serving the TPU build provides a standalone ``Predictor``:
+For production serving this build provides a standalone ``Predictor``:
 
 * loads a model from a reference-format ``.npy`` snapshot (+ the flags
   recorded in ``options.toml``) or wraps an in-memory model;
@@ -56,14 +56,10 @@ class Predictor:
         # Per-batch jitted program + ASYNC host loop (one device sync per
         # REQUEST, not per batch): JAX dispatch is asynchronous, so queueing
         # every batch before the single block_until_ready pipelines
-        # host->device transfer with compute.  Measured (v5e, flagship,
-        # S=5, 4096-row requests): async loop ~60k img/s; the round-2 code
-        # synced per batch (~5.7k img/s at best); a lax.scan over batches —
-        # tried for "one dispatch per request" (VERDICT r2 weak #5) — was
-        # 50x SLOWER (~200 ms per scan body vs 30 ms for the identical body
-        # as a direct jit call): scan bodies with multi-hundred-MB live
-        # intermediates schedule catastrophically, the same lesson as the
-        # microbenchmark notes in CLAUDE.md — trust only end-to-end timing.
+        # host->device transfer with compute.  A lax.scan over batches (one
+        # dispatch per request) scheduled its multi-hundred-MB live
+        # intermediates far worse than the identical body as a direct jit
+        # call; trust only end-to-end timing.
         def _probs(m, xb, key):
             with self._mesh_ctx():
                 probs, _ = m.predict_y(xb, key, S)

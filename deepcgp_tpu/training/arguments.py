@@ -41,7 +41,7 @@ def default_parser() -> argparse.ArgumentParser:
                         help="Initial NatGrad step size.")
     parser.add_argument('--identity-mean', action='store_true')
     parser.add_argument('--load-model', type=str, default=None)
-    # TPU-rebuild extensions (not in the reference):
+    # Extensions (not in the reference):
     parser.add_argument('--natgrad-warm-steps', type=int, default=0,
                         help="NatGrad only: run this many Adam steps first, "
                              "then hand the warmed model to NatGrad.  From "

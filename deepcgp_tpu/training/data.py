@@ -76,7 +76,7 @@ def learnable_blobs(n, shape, classes, seed):
     probe — unlike the bench's pure-noise throughput data, training on this
     must visibly reduce the ELBO and reach high train accuracy, so a
     numerics regression (bad precision flip, broken optimizer commit) shows
-    up in the driver-visible BENCH_r{N}.json (VERDICT r3 weak #4)."""
+    up in the benchmark record."""
     rng = np.random.RandomState(seed)
     templates = rng.randn(classes, *shape).astype(np.float32)
     y = rng.randint(0, classes, size=(n, 1))
@@ -116,7 +116,7 @@ def load_dataset(name: str):
     'digits' NEVER falls through to the synthetic generator: it is the
     repo's REAL-data accuracy artifact (PARITY.md, bench.py's
     digits_test_accuracy), and a silent blob substitute would report
-    near-1.0 synthetic accuracy under a real-data label (ADVICE r4).
+    near-1.0 synthetic accuracy under a real-data label.
     When sklearn is unavailable an explicit npz may stand in; otherwise
     this raises so callers fail loudly (bench emits null instead)."""
     if name == 'digits':

@@ -95,7 +95,7 @@ class Experiment:
     def _is_writer(self) -> bool:
         """Single-writer rule: with a shared --log-dir, exactly one process
         (index 0) owns every artifact — .npy snapshot, CSV, options.toml,
-        preprocessing.npz, TensorBoard, orbax state (VERDICT r2 missing #3).
+        preprocessing.npz, TensorBoard, orbax state.
         All processes still COMPUTE eval entries (SPMD collectives)."""
         return jax.process_index() == 0
 
@@ -199,7 +199,7 @@ class Experiment:
         a short Adam phase places the variational state in the basin and
         NatGrad then matches or beats Adam from the first eval (measured
         on UCI digits — PARITY.md 'NatGrad convergence on digits').
-        TPU-build extension alongside the reference's gamma step-back
+        An extension alongside the reference's gamma step-back
         machinery (`conv_gp/experiment.py:74-80`)."""
         cfg = TrainConfig(optimizer='Adam', lr=self.flags.lr,
                           lr_decay_steps=self.flags.lr_decay_steps,
@@ -275,12 +275,16 @@ class Experiment:
             if getattr(self, '_test_dev', None) is None:
                 import numpy as np
                 from deepcgp_tpu.parallel import multihost
-                # Pad to a process multiple (sentinel labels) so every test
-                # row survives the even process split; accuracy divides by
+                # Pad (sentinel labels) to a multiple of both the process
+                # count and the 'data' axis, so every test row survives the
+                # even split over processes and devices; accuracy divides by
                 # the TRUE count below.
+                import math
+                multiple = math.lcm(jax.process_count(),
+                                    dict(self.mesh.shape).get('data', 1))
                 Xp, Yp = multihost.pad_rows(np.asarray(X),
                                             np.asarray(self.Y_test),
-                                            jax.process_count())
+                                            multiple)
                 self._test_dev = multihost.host_local_to_global(
                     self.mesh,
                     multihost.process_shard(Xp),

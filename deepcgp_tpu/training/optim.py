@@ -34,37 +34,17 @@ import jax.numpy as jnp
 import optax
 from jax import lax
 
-from deepcgp_tpu.ops import pallas_linalg
-
 
 # Precision of the matmuls whose RESULT IS the new variational state
 # (W_new = W R^-T and the mu_new matvecs).  Rounding here feeds back into
-# (q_mu, q_sqrt) every step, so the bar is higher than for the
-# conditional's evaluation-only inverse-apply einsums — but HIGH (bf16x3)
-# carries ~f32-level multiply error, and the gate evidence is direct: a
-# 10k-step NatGrad flagship soak at 'high' ran nan_steps=0, steps_back=0,
-# train_accuracy=1.000, ELBO improving throughout (tools/soak.py,
-# /tmp/soak_sphigh.log protocol), while the W_new product dropped from
-# the bf16x6 to the bf16x3 MXU rate (NatGrad flagship 565 -> 576
-# steps/s).  DEEPCGP_NATGRAD_PRECISION=highest restores the old default
-# for re-running the comparison.
+# (q_mu, q_sqrt) every step, so they run as full-float32 products (HIGHEST;
+# DEFAULT and HIGH are TF32 on the H100).  DEEPCGP_NATGRAD_PRECISION
+# overrides.
 _STATE_PRECISION = {
     'default': lax.Precision.DEFAULT,
     'high': lax.Precision.HIGH,
     'highest': lax.Precision.HIGHEST,
-}[os.environ.get('DEEPCGP_NATGRAD_PRECISION', 'high')]
-
-
-def _use_pallas_factor(dtype, M: int) -> bool:
-    """Gate for the batch-parallel NatGrad factorization: TPU backend,
-    f32, lane-aligned M.  DEEPCGP_NO_PALLAS_NATGRAD=1 falls back to the
-    XLA custom-call route (also used on CPU meshes and in f64 oracles);
-    DEEPCGP_PALLAS_FORCE=1 takes this path on CPU too (interpret mode) so
-    mesh tests cover the pjit+pallas_call composition."""
-    return ((jax.default_backend() == 'tpu' or pallas_linalg.forced())
-            and dtype == jnp.float32
-            and M % pallas_linalg.PANEL == 0
-            and not os.environ.get('DEEPCGP_NO_PALLAS_NATGRAD'))
+}[os.environ.get('DEEPCGP_NATGRAD_PRECISION', 'highest')]
 
 # ----------------------------------------------------------------- schedules
 
@@ -133,15 +113,13 @@ def scale_by_adam_storage(storage_dtype=None, b1=0.9, b2=0.999, eps=1e-8,
     """optax.scale_by_adam with the moment STORAGE dtype decoupled from the
     update arithmetic (which stays in the parameter dtype, f32).
 
-    Why: the m1024 config's Adam+commit mega-fusions are HBM-bandwidth
-    bound — they stream the [10, 1024, 1024] f32 (m, v) stacks in and out
-    every step (~315us/step, tools/roofline.py).  bf16 moments halve 2/3
-    of that traffic.  The arithmetic is unchanged: moments are upcast to
+    Why: the m1024 config's Adam+commit fusions stream the
+    [10, 1024, 1024] f32 (m, v) stacks in and out every step; bf16
+    moments halve 2/3 of that traffic.  The arithmetic is unchanged: moments are upcast to
     f32, updated with the exact optax recurrences + bias correction, and
     rounded once on store — so the only new error is one bf16 rounding of
     (m, v) per step (~0.4% relative), against gradient noise that is
-    orders larger.  Gated on-TPU with tools/precision_gate.py + the soak
-    protocol before any default flip (VERDICT r3 next #5).
+    orders larger.
 
     With ``storage_dtype=None`` this is arithmetically identical to
     ``optax.scale_by_adam`` (pinned by
@@ -179,7 +157,7 @@ def scale_by_adam_storage(storage_dtype=None, b1=0.9, b2=0.999, eps=1e-8,
         del params
         count_inc = state.count + 1
         # Weak-typed exactly like optax.scale_by_adam's bias correction
-        # (f64 under x64, f32 on TPU): an earlier f32-pinned form drifted
+        # (f64 under x64, f32 otherwise): an earlier f32-pinned form drifted
         # 7e-6/step from optax and broke the f64 trajectory-parity matrix
         # once 'auto' made this transform the default for every config.
         c1 = 1.0 - b1 ** count_inc
@@ -360,20 +338,14 @@ def natgrad_update(q_mu, q_sqrt, dq_mu, dq_sqrt, gamma):
 
     Total per step: ONE batched Cholesky + ONE batched triangular solve
     (the M-rhs inverse of Lgf) + triangular matmuls — versus one Cholesky
-    plus FOUR batched solves for the explicit theta round trip.  Batched
-    [R, M, M] chol/TRSM custom calls on TPU cost time LINEAR in R
-    (profiled: [20,384,384] solve 305us vs [3,384,384] 46us — the batch
-    runs serially inside the call), so dropping calls is the whole
-    ballgame.  (An intermediate variant that formed S_new = T T^T and
-    re-factorized it traded 3 solves for 1 extra chol and measured SLOWER
-    — 213.8 -> 197.4 steps/s — a batched chol costs ~3x a batched solve.)
+    plus FOUR batched solves for the explicit theta round trip.
     Numerically the fused form is the better-conditioned one as well:
     G = I + O(gamma) while the old path factorized P = Sinv + 2g S_bar
     with Sinv = W^-T W^-1 formed explicitly (condition squared).  The
-    triangular products run at ``_STATE_PRECISION`` (bf16x3 by default,
-    soak-gated — see the knob's comment above): their result is the new
-    Cholesky factor itself, so single-pass bf16 would feed visible
-    rounding back into the variational state every step.  Equality with the textbook transform is
+    triangular products run at ``_STATE_PRECISION``: their result is the
+    new Cholesky factor itself, so a TF32 product would feed visible
+    rounding back into the variational state every step.  Equality with
+    the textbook transform is
     pinned by test_training.py::test_natgrad_matches_theta_roundtrip and
     the NatGrad trajectory-parity suite.
     """
@@ -386,53 +358,19 @@ def natgrad_update(q_mu, q_sqrt, dq_mu, dq_sqrt, gamma):
     M = W.shape[-1]
     # The exchange-identity factor in UPPER form: G = R R^T with R
     # upper-triangular gives U = R^-T — lower-triangular with positive
-    # diagonal and U U^T = G^-1 — so W_new = W R^-T directly; the
-    # transpose is absorbed into the dot_general's contracting dims
-    # (both operands contract their LAST axis; no transpose copy).
-    if _use_pallas_factor(W.dtype, M):
-        # H = sym(phi(X)) is purely STRUCTURAL symmetrization (phi(X) is
-        # lower-triangular), so H_ij = X_ij / 2 for every i >= j — only
-        # tril(X) is ever consumed, and the Pallas upper factor reads
-        # only the lower triangle (pallas_linalg._factor_blocks_upper).
-        # G's lower triangle is therefore ONE tril-mask fused into the
-        # matmul epilogue — no phi select, no [R, M, M] transpose, no
-        # sym/assembly passes (~260us/step at M=1024, round-5 roofline).
-        # gamma*X is bit-identical to (2*gamma)*(X/2): exact exponent
-        # shifts around one multiply.
-        G = gamma * jnp.tril(XtW) + jnp.eye(M, dtype=W.dtype)
-        # Batch-parallel Pallas factorization of G (XLA's batched chol
-        # custom call runs the batch SERIALLY — [20,384,384] ~1.25ms on
-        # v5e), upper variant so the exchange identity's [R, M, M] index
-        # reverses vanish, and W_new = W R^-T by block BACK-SUBSTITUTION
-        # on the product (pallas_linalg.chol_right_solve_upper) — the
-        # explicit R^-1 was only ever used in this one product, and its
-        # O(np^3/6) block assembly was ~150us/step of dispatch-bound
-        # [20, 64, 64] einsums plus a 49us final apply (round-4 roofline
-        # per-source table).  Panel 64 measured best end-to-end at the
-        # flagship M=384 (380/426.6/414.6 steps/s at panel 32/64/128,
-        # gen-2 era), but at M=1024 the np=16 blocking explodes into a
-        # bandwidth-bound 136-einsum back-substitution chain: panel 128
-        # measured 815.3 vs 1672.4 us/call on the [10, 1024, 1024] stack
-        # (panel 256 regresses to 1227 — base-case serial cost; a
-        # tri_inv_doubling + dense-apply route measured 1486).
-        M_panel = 128 if M >= 512 else pallas_linalg.PANEL
-        W_new = pallas_linalg.chol_right_solve_upper(
-            G, W, panel=M_panel, precision=_STATE_PRECISION)
-    else:
-        # XLA route (CPU meshes, f64 oracles): needs the full symmetric G
-        # (jnp.linalg.cholesky of the flipped matrix reads G's UPPER
-        # triangle); lower Cholesky of the index-reversed matrix, then
-        # R^-1 = J Lgf^-1 J (flip both axes, no transpose).
-        P = _phi(XtW)
-        H = 0.5 * (P + jnp.swapaxes(P, -1, -2))  # sym(phi(W^T dW))
-        G = 2.0 * gamma * H + jnp.eye(M, dtype=W.dtype)
-        Lgf = jnp.linalg.cholesky(G[..., ::-1, ::-1])
-        I = jnp.broadcast_to(jnp.eye(M, dtype=W.dtype), W.shape)
-        Lgfinv = lax.linalg.triangular_solve(Lgf, I, left_side=True,
-                                             lower=True)
-        Rinv = Lgfinv[..., ::-1, ::-1]
-        W_new = jnp.einsum('rmk,rnk->rmn', W, Rinv,
-                           precision=_STATE_PRECISION)     # W R^-T
+    # diagonal and U U^T = G^-1 — so W_new = W R^-T directly.  Lower
+    # Cholesky of the index-reversed G (which reads the full symmetric
+    # matrix), then R^-1 = J Lgf^-1 J (flip both axes, no transpose); the
+    # final transpose is absorbed into the dot_general's contracting dims.
+    P = _phi(XtW)
+    H = 0.5 * (P + jnp.swapaxes(P, -1, -2))  # sym(phi(W^T dW))
+    G = 2.0 * gamma * H + jnp.eye(M, dtype=W.dtype)
+    Lgf = jnp.linalg.cholesky(G[..., ::-1, ::-1])
+    I = jnp.broadcast_to(jnp.eye(M, dtype=W.dtype), W.shape)
+    Lgfinv = lax.linalg.triangular_solve(Lgf, I, left_side=True, lower=True)
+    Rinv = Lgfinv[..., ::-1, ::-1]
+    W_new = jnp.einsum('rmk,rnk->rmn', W, Rinv,
+                       precision=_STATE_PRECISION)         # W R^-T
     # mu_new = mu - g W_new (W_new^T dmu): two matvecs, no S_new needed.
     t = jnp.einsum('rmn,rm->rn', W_new, dmu,
                    precision=_STATE_PRECISION)                # W_new^T dmu
@@ -470,9 +408,8 @@ def natgrad_step_with_backoff(layers: tuple, grads_layers: tuple, gamma,
 
     Layers with the same (M, R) are STACKED along the GP axis and updated
     by one batched ``natgrad_update`` call: the update is independent per
-    GP, and the batched Choleskys/solves it runs are latency-bound on TPU,
-    so two M=384 layers cost barely more than one (the flagship config has
-    two identical-(M, R) layers — this halves the factorization count)."""
+    GP, so the flagship config's two identical-(M, R) layers share one
+    batched factorization instead of two."""
     groups = {}  # (q_mu.shape, q_sqrt.shape) -> list of layer indices
     for i, layer in enumerate(layers):
         groups.setdefault(

@@ -35,10 +35,10 @@ import typing
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 from jax import lax
 
 from deepcgp_tpu.training import optim
+from deepcgp_tpu.utils import struct
 
 
 @struct.dataclass
@@ -69,12 +69,12 @@ def _adam_core():
     # DEEPCGP_ADAM_MOMENT_DTYPE=bfloat16 stores the Adam moments in bf16
     # (update math stays f32 — optim.scale_by_adam_storage): the m1024
     # config's Adam+commit fusions are bandwidth-bound on the f32 moment
-    # stacks.  Default f32 pending the on-TPU precision gate + soak.
+    # stacks.
     dt = os.environ.get('DEEPCGP_ADAM_MOMENT_DTYPE', 'auto')
     if dt == 'auto':
         # Per-leaf: bf16 STOCHASTIC-ROUNDING stores for >=2^22-element f32
-        # leaves (m1024's bandwidth-bound [10,1024,1024] moment stacks:
-        # -44us/step device, soak ELBO -173.5 vs f32 -173.6), exact f32
+        # leaves (m1024's bandwidth-bound [10,1024,1024] moment stacks;
+        # soak ELBO -173.5 vs f32 -173.6), exact f32
         # for everything else (flagship/CLI states are bit-identical to
         # optax).  Plain RTN bf16 FAILED the soak gate — it freezes the
         # second moment (PARITY.md round-4); SR is unbiased per store.
@@ -196,13 +196,10 @@ def scan_unroll(config: TrainConfig, num_steps: int) -> int:
     scan BODY once, so the program total is per-step * unroll).
 
     Unrolling the scan amortizes the while-loop machinery (condition
-    evaluation, carry/trace dynamic-update-slices — profiled ~110us/step of
-    ~350 sub-microsecond ops at unroll=2 on the NatGrad flagship) over more
-    steps per iteration, at the cost of compile time.  Swept on v5e:
-    unroll=4 gains the Adam configs ~1.5% (flagship 776->786, M=1024
-    573->583 steps/s) but LOSES NatGrad 540->528 (its bigger body blows past
-    a cache/VMEM sweet spot), so the default is per-optimizer;
-    DEEPCGP_SCAN_UNROLL overrides for re-sweeping."""
+    evaluation, carry/trace dynamic-update-slices) over more steps per
+    iteration, at the cost of compile time.  The per-optimizer defaults
+    (Adam 4, NatGrad 2) were tuned on earlier hardware and await an H100
+    sweep (ROADMAP C4); DEEPCGP_SCAN_UNROLL overrides."""
     default_unroll = 2 if config.optimizer == 'NatGrad' else 4
     unroll = int(os.environ.get('DEEPCGP_SCAN_UNROLL', default_unroll))
     while unroll > 1 and num_steps % unroll:
@@ -219,12 +216,12 @@ def run_chunk_impl(state: TrainState, config: TrainConfig, X_train, Y_train,
     Plain (un-jitted) so the mesh path (parallel/train.py) can re-trace it
     under a mesh context without reaching into jit internals."""
     N = X_train.shape[0]
-    # TPU row gathers are serial per-index DMAs (~2.5us each — 0.3ms/step
-    # at batch 128).  For small resident sets a one-hot matmul selection is
-    # faster AND bitwise identical (one-hot rows are exact in every matmul
-    # pass; pinned by test_training.py::test_onehot_gather_bitwise).  The
-    # matmul costs 2*B*N*D flops, so past ~8M table elements (e.g. full
-    # 60k-row MNIST) the gather wins again.
+    # For small resident sets the minibatch rows are selected by a one-hot
+    # matmul, bitwise identical to a gather (one-hot rows are exact at
+    # HIGHEST; pinned by test_training.py::test_onehot_gather_bitwise).
+    # The matmul costs 2*B*N*D flops, so past ~8M table elements (e.g. full
+    # 60k-row MNIST) the gather takes over.  Which is faster on the H100 is
+    # open (ROADMAP C3).
     use_onehot = N * X_train.shape[1] <= 8_000_000
 
     def _rows(table, idx):

@@ -148,13 +148,23 @@ def load_layer_parameters(path: str, model_layers: int):
 # ------------------------------------------------------------- full state
 # The reference's .npy snapshot drops optimizer state (Adam moments are NOT
 # saved — SURVEY.md §5.4), so resume restarts the moments from zero.  For
-# preemption tolerance the TPU build adds an orbax-backed checkpoint of the
+# preemption tolerance this build adds an orbax-backed checkpoint of the
 # ENTIRE TrainState (model + optimizer moments + step + PRNG key + NatGrad
 # backoff counter) alongside the reference-compatible snapshot.
 
+def _orbax():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "full-state checkpoints (--full-state-ckpt) need the "
+            "orbax-checkpoint package, which is not installed") from e
+    return ocp
+
+
 def save_train_state(directory: str, state, *, keep: int = 3) -> None:
     """Write the full TrainState under ``directory/state_<step>``."""
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     step = int(state.step)
@@ -210,12 +220,12 @@ def restore_train_state(directory: str, abstract_state):
       every leaf restores with an explicit cast to the template's dtype
       (orbax RestoreArgs(dtype=...)), so an f32-moment snapshot resumes
       into a bf16-storage run and vice versa instead of failing on the
-      dtype mismatch (ADVICE r4).  The f32->bf16 direction is a one-time
+      dtype mismatch.  The f32->bf16 direction is a one-time
       round-to-nearest of the restored value — subsequent stores go
       through the optimizer's own stochastic rounding — and bf16->f32 is
       exact.  Shape/structure mismatches still propagate unmasked."""
     import jax
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     def construct_restore_args(tpl):
         # NUMPY restore with an explicit cast to each template leaf's dtype.

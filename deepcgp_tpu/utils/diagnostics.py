@@ -1,12 +1,12 @@
 """Numerics diagnostics (SURVEY.md §5.2).
 
 The reference leans on float64-everywhere + jitter for numerical safety and
-has no sanitizers.  The TPU rebuild computes in float32, so it ships the
+has no sanitizers.  This rebuild computes in float32, so it ships the
 checks instead:
 
 * ``elbo_drift`` — evaluate the same model/batch in f32 and f64 (dtype-
   polymorphic code paths, f64 under ``jax.experimental.enable_x64``) and
-  report the relative ELBO drift; the numeric acceptance gate for f32-on-MXU.
+  report the relative ELBO drift; the numeric acceptance gate for f32.
 * ``param_health`` — non-finite counts per parameter (NatGrad failure
   forensics).
 * ``cholesky_health`` — per-layer Kuu Cholesky success under the current
@@ -33,7 +33,7 @@ def cast_model(model, dtype):
 def elbo_drift(model, X, Y, key, num_samples: int | None = None) -> dict:
     """Relative |ELBO_f32 - ELBO_f64| / |ELBO_f64| on one batch.
 
-    Runs on CPU (f64 needs the x64 mode; TPU has no f64 units anyway).
+    Runs on CPU (f64 needs the process-wide x64 mode).
     Returns {'elbo_f32', 'elbo_f64', 'rel_drift'}.
     """
     cpu = jax.devices('cpu')[0]

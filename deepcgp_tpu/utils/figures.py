@@ -6,7 +6,7 @@ produce three figure families: the inducing-patch tilings, the patch-
 embedding scatter, and the noise-robustness curve.  utils/inspect.py is the
 library form of those computations; this module is the rendering half —
 each function writes one PNG and returns its path, so a run dir ends up with
-the same artifacts a notebook export would produce (VERDICT r1 missing #3).
+the same artifacts a notebook export would produce.
 
 matplotlib only; no seaborn/umap dependencies.
 """
@@ -24,7 +24,11 @@ _INK = '#333333'
 
 
 def _fig_axes(figsize):
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("figures need matplotlib, which is not "
+                          "installed") from e
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
     fig, ax = plt.subplots(figsize=figsize, dpi=150)

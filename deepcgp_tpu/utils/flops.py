@@ -1,6 +1,5 @@
 """Analytic FLOP accounting for one optimizer step (SURVEY.md §3.3 cost
-lines; VERDICT r1 weak #7: the bench reported steps/s only, so nobody knew
-whether the chip ran at 5% or 50% MFU).
+lines), and the peak rates MFU is quoted against.
 
 Two counts, LLM-convention style:
 
@@ -24,8 +23,6 @@ is bandwidth- not FLOP-bound and is deliberately excluded from both.
 """
 
 from __future__ import annotations
-
-import re
 
 
 def _conv_layer_flops(layer, N: int, hardware: bool):
@@ -116,13 +113,13 @@ def _step_flops(model, batch_size: int, hardware: bool) -> float:
 
 
 def training_step_flops(model, batch_size: int) -> float:
-    """Analytic *model* MXU FLOPs of ONE optimizer step (fwd + bwd).
+    """Analytic *model* matmul FLOPs of ONE optimizer step (fwd + bwd).
     MFU is quoted from this figure — see the module docstring."""
     return _step_flops(model, batch_size, hardware=False)
 
 
 def training_step_hardware_flops(model, batch_size: int) -> float:
-    """Analytic MXU FLOPs the shipped inverse-form implementation actually
+    """Analytic matmul FLOPs the shipped inverse-form implementation actually
     executes per step — the comparator for XLA's cost analysis."""
     return _step_flops(model, batch_size, hardware=True)
 
@@ -137,16 +134,14 @@ def _tree_bytes(tree) -> int:
 def training_step_min_bytes(model, batch_size: int,
                             moment_bytes_per_param: int = 8) -> float:
     """Analytic MODEL-MINIMAL HBM bytes of ONE optimizer step — the bytes
-    companion of :func:`training_step_flops` (VERDICT r4 next #1).
+    companion of :func:`training_step_flops`.
 
     Convention (the floor of floors — assumes perfect fusion, i.e. NO
     intermediate ever round-trips HBM; everything recomputable is
-    recomputed in VMEM): per step the program must at minimum
+    recomputed on chip): per step the program must at minimum
       * read the minibatch rows once               (B * D * itemsize),
       * read every parameter twice (fwd + bwd — the LLM-convention
-        weights-read accounting; a fused step could in principle cache
-        layer-sized params in VMEM, but the [R, M, M] variational stacks
-        exceed VMEM at every shipped config),
+        weights-read accounting),
       * write every gradient once and read it once (optimizer input),
       * read + write the optimizer moments          (``moment_bytes_per_
         param`` = 8 for the two f32 Adam moments; the SR-bf16 storage
@@ -154,9 +149,7 @@ def training_step_min_bytes(model, batch_size: int,
       * write every updated parameter once.
     Everything else — kernel matrices, im2col tensors, conditional
     intermediates, MC samples — is implementation traffic: legitimate
-    (often cheaper than recompute) but not part of the floor.  The audit
-    (tools/bytes_audit.py) compares the XLA program's measured bytes
-    against this figure the way MFU compares achieved to peak FLOPs.
+    (often cheaper than recompute) but not part of the floor.
     """
     p_bytes = _tree_bytes(model)
     n_params = p_bytes / 4                       # f32 leaves
@@ -178,24 +171,36 @@ def training_step_min_bytes(model, batch_size: int,
                  + p_bytes)             # updated params written
 
 
-# Peak dense-matmul throughput per chip, FLOP/s.  The library computes in
-# f32, which the v5e MXU executes via bf16x3-style passes below the bf16
-# peak; MFU is conventionally quoted against the bf16 peak, so the figure
-# here is conservative.
-TPU_PEAK_FLOPS = {
-    'v5e': 197e12,        # TPU v5e / v5litepod, bf16
-    'v5p': 459e12,
-    'v4': 275e12,
-    'v6e': 918e12,
+# Published peaks per device, keyed by a substring of ``device_kind``
+# (NVIDIA H100 SXM data sheet; dense rates, no sparsity; at the card's full
+# 700 W power limit).  bench.py quotes MFU against ``tf32``: the hot
+# cross-covariance matmuls are float32 at DEFAULT precision, which the H100
+# runs on its TF32 tensor cores.
+PEAKS = {
+    'H100': {
+        'bf16': 989e12,
+        'tf32': 495e12,
+        'fp32': 67e12,       # outside the tensor cores
+        'fp64': 67e12,       # FP64 tensor cores
+        'hbm_bytes_per_s': 3.35e12,
+    },
 }
+
+# The peak that MFU is quoted against.
+MFU_PEAK = 'tf32'
+
+
+def device_peaks(device) -> dict:
+    """The :data:`PEAKS` row of ``device``; a device missing from the table
+    is an error, not a default."""
+    kind = getattr(device, 'device_kind', '')
+    for key, row in PEAKS.items():
+        if key.lower() in kind.lower():
+            return row
+    raise ValueError(f"no peak rates known for device kind {kind!r}; "
+                     f"add a row to deepcgp_tpu.utils.flops.PEAKS")
 
 
 def device_peak_flops(device) -> float:
-    kind = getattr(device, 'device_kind', '').lower()
-    # Real device_kind strings spell the litepod variants 'TPU v5 lite' /
-    # 'TPU v6 lite'; normalize to the short 'v5e'/'v6e' aliases first.
-    kind = re.sub(r'v(\d+)\s*lite', r'v\1e', kind)
-    for key, peak in TPU_PEAK_FLOPS.items():
-        if key in kind:
-            return peak
-    return float('nan')
+    """The :data:`MFU_PEAK` rate of ``device``, FLOP/s."""
+    return device_peaks(device)[MFU_PEAK]

@@ -83,11 +83,13 @@ def patch_embedding(layer, NHWC_X: np.ndarray, max_data_patches: int = 5000,
         import umap  # optional dependency (umap-learn)
         emb = umap.UMAP(n_components=2).fit_transform(joint)
     except ImportError:
-        # umap-learn is genuinely absent from this offline image, so the
-        # embeddings reproduced from `notebooks/Inspect.ipynb` use joint
-        # PCA as the documented substitute; install umap-learn to get the
-        # notebooks' exact figure (the conditional import prefers it —
-        # pinned by test_inspect.py::test_patch_embedding_uses_umap...).
+        # Without umap-learn the embeddings reproduced from
+        # `notebooks/Inspect.ipynb` use joint PCA as the documented
+        # substitute (the conditional import prefers umap — pinned by
+        # test_inspect.py::test_patch_embedding_uses_umap...).
+        import warnings
+        warnings.warn("umap-learn is not installed; patch embedding falls "
+                      "back to a 2-D PCA projection")
         emb = _pca_2d(joint)
     return emb[:Z.shape[0]], emb[Z.shape[0]:]
 

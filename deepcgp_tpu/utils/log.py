@@ -81,7 +81,7 @@ class Log:
     collective accuracy computation or the cluster deadlocks) but nothing
     touches the filesystem.  Non-zero processes of a shared-log-dir
     multi-host run use this so exactly one process owns log.csv /
-    options.toml (single-writer; VERDICT r2 missing #3)."""
+    options.toml (single-writer)."""
 
     def __init__(self, log_dir: str, run_name: str, loggers,
                  write: bool = True):

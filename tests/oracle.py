@@ -101,13 +101,14 @@ def gauss_kl(q_mu, q_sqrt, K=None):
     return kl
 
 
-def extract_patches(images, filter_size, stride=1):
+def extract_patches(images, filter_size, stride=1, dilation=1):
     """[N,H,W,C] -> [N,P,L], TF extract_image_patches ordering
     ((fh, fw, C) fastest-last), literal loops."""
     images = np.asarray(images, np.float64)
     N, H, W, C = images.shape
-    Hout = (H - filter_size) // stride + 1
-    Wout = (W - filter_size) // stride + 1
+    span = (filter_size - 1) * dilation + 1
+    Hout = (H - span) // stride + 1
+    Wout = (W - span) // stride + 1
     L = filter_size * filter_size * C
     out = np.zeros((N, Hout * Wout, L))
     for n in range(N):
@@ -115,8 +116,8 @@ def extract_patches(images, filter_size, stride=1):
         for i in range(Hout):
             for j in range(Wout):
                 patch = images[n,
-                               i * stride:i * stride + filter_size,
-                               j * stride:j * stride + filter_size, :]
+                               i * stride:i * stride + span:dilation,
+                               j * stride:j * stride + span:dilation, :]
                 out[n, p] = patch.reshape(-1)  # row-major (fh, fw, C)
                 p += 1
     return out

@@ -106,43 +106,3 @@ def test_layer_and_convkernel_dispatch_equivalence(monkeypatch):
                                rtol=1e-9, atol=1e-11)
     np.testing.assert_allclose(np.asarray(var1), np.asarray(var2),
                                rtol=1e-9, atol=1e-11)
-
-
-def test_conv_cross_weights_order_with_pallas_extraction(monkeypatch):
-    """Kzx_NM / Kzx_NM_and_Kdiag with NON-uniform patch weights must be
-    identical with conv_cross on and off while the Pallas (transposed
-    patch order) extraction is active: conv_cross emits TF row-major
-    patches, so the Pallas weight permutation must NOT apply to its NPM
-    (regression: the permuted weights were applied to both producers)."""
-    from deepcgp_tpu.models.base_kernels import RBF as RBF32
-    from deepcgp_tpu.models.conv_kernels import AdditivePatchKernel
-    from deepcgp_tpu.ops import pallas_patches
-
-    monkeypatch.setenv('DEEPCGP_PALLAS_EXTRACT', '1')
-    rng = np.random.RandomState(2)
-    H = W = 10
-    view = FullView(input_size=(H, W), filter_size=3, feature_maps=1,
-                    stride=1)
-    assert pallas_patches.supports(view)
-    X = jnp.asarray(rng.randn(3, H * W).astype(np.float32))
-    Z = jnp.asarray(rng.randn(5, view.patch_length).astype(np.float32))
-    w = jnp.asarray(rng.rand(view.patch_count).astype(np.float32) + 0.5)
-    kern = AdditivePatchKernel.create(
-        RBF32.create(variance=1.5, lengthscales=2.0, dtype=jnp.float32),
-        view, patch_weights=w, dtype=jnp.float32)
-    assert kern._pallas_order()
-
-    off = kern.Kzx_NM(Z, X)
-    off_pair = kern.Kzx_NM_and_Kdiag(Z, X)
-    monkeypatch.setattr(conv_cross, '_ENABLED', True)
-    assert conv_cross.supports(kern.base_kernel, view)
-    on = kern.Kzx_NM(Z, X)
-    on_pair = kern.Kzx_NM_and_Kdiag(Z, X)
-    np.testing.assert_allclose(np.asarray(on), np.asarray(off),
-                               rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(on_pair[0]),
-                               np.asarray(off_pair[0]),
-                               rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(on_pair[1]),
-                               np.asarray(off_pair[1]),
-                               rtol=2e-5, atol=2e-6)

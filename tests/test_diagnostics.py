@@ -26,7 +26,7 @@ def test_elbo_f32_f64_drift_small():
     out = diag.elbo_drift(model, X[:16].reshape(16, -1), Y[:16],
                           jax.random.PRNGKey(1))
     assert np.isfinite(out['elbo_f32']) and np.isfinite(out['elbo_f64'])
-    # f32 vs f64 agreement is the acceptance gate for f32-on-MXU compute
+    # f32 vs f64 agreement is the acceptance gate for f32 compute
     # (SURVEY.md hard part b).
     assert out['rel_drift'] < 1e-4, out
 

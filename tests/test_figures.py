@@ -1,5 +1,5 @@
 """Figure rendering smoke tests (utils/figures.py; the reference notebooks'
-output artifacts — VERDICT r1 missing #3)."""
+output artifacts)."""
 
 import os
 

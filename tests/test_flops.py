@@ -43,7 +43,7 @@ def test_flops_order_of_magnitude_vs_xla():
     """The analytic *hardware* count (what the inverse-form implementation
     executes) must agree with XLA's cost analysis of the real
     forward+backward program within a loose factor (the analytic number
-    counts MXU work only; XLA counts everything)."""
+    counts matmul work only; XLA counts everything)."""
     from deepcgp_tpu.training import trainer
     from deepcgp_tpu.training.trainer import TrainConfig
 
@@ -73,11 +73,22 @@ def test_flops_order_of_magnitude_vs_xla():
     assert flops_lib.training_step_flops(model, 8) <= analytic
 
 
-def test_device_peak_lookup():
-    class FakeDev:
-        device_kind = 'TPU v5e'
-    assert flops_lib.device_peak_flops(FakeDev()) == 197e12
-
-    class Cpu:
-        device_kind = 'cpu'
-    assert np.isnan(flops_lib.device_peak_flops(Cpu()))
+@pytest.mark.parametrize('kind,peak', [
+    ('NVIDIA H100 80GB HBM3', 495e12),
+    ('NVIDIA H100 PCIe', 495e12),
+    ('NVIDIA H100 NVL', 495e12),
+    ('cpu', None),
+    ('NVIDIA A100-SXM4-80GB', None),
+])
+def test_device_peak_lookup(kind, peak):
+    """H100 kinds resolve to the TF32 peak MFU is quoted against; a device
+    missing from the table raises instead of returning a default."""
+    class Dev:
+        device_kind = kind
+    if peak is None:
+        with pytest.raises(ValueError, match='no peak rates'):
+            flops_lib.device_peak_flops(Dev())
+    else:
+        assert flops_lib.MFU_PEAK == 'tf32'
+        assert flops_lib.device_peak_flops(Dev()) == peak
+        assert flops_lib.device_peaks(Dev())['hbm_bytes_per_s'] == 3.35e12

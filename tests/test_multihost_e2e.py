@@ -7,7 +7,7 @@ the --distributed/--mesh path: per-process row shards assembled by
 multihost.host_local_to_global, the pjit'd train chunk, and the sharded
 test-accuracy evaluation.  Both processes must finish and report
 BIT-IDENTICAL ELBOs (SPMD determinism) — this is the evidence that the
-multi-host wiring is more than shard arithmetic (VERDICT r1 weak #5).
+multi-host wiring is more than shard arithmetic.
 """
 
 import os
@@ -102,7 +102,7 @@ def test_two_process_shared_dir_single_writer_and_resume(tmp_path):
     — one log.csv (one header, one row per epoch), options.toml, the .npy
     snapshot, and the orbax full state — and a SECOND two-process launch
     resumes from that orbax state across both processes and continues
-    training (VERDICT r2 missing #3)."""
+    training."""
     worker = tmp_path / 'worker.py'
     worker.write_text(_WORKER.format(repo=REPO))
     shared = tmp_path / 'shared'

@@ -100,7 +100,7 @@ def test_conditional_no_qsqrt_and_precomputed_Lm():
 
 
 def test_conditional_diag_variance_clamped_nonnegative():
-    """The diagonal Knn - ||A||^2 must be clamped at 0: on TPU f32 the
+    """The diagonal Knn - ||A||^2 must be clamped at 0: in f32 the
     inverse-apply matmul noise exceeds a tiny true posterior variance when
     Kmm is ill-conditioned (near-duplicate inducing patches), and the
     resulting negative variance NaN'd sqrt(var) in sampling (observed on
@@ -127,7 +127,7 @@ def test_conditional_diag_variance_clamped_nonnegative():
 
 
 def test_conditional_full_cov_diag_clamped_nonnegative():
-    """Full-cov twin of the diag clamp (VERDICT r4 weak #3): the same f32
+    """Full-cov twin of the diag clamp: the same f32
     downdate noise sits on the diagonal of the [N, N] posterior covariance,
     and sample_from_conditional(full_cov=True) Choleskys that matrix — a
     negative diagonal NaNs it.  Same doctored construction as the diag
@@ -165,7 +165,7 @@ def test_conditional_full_cov_diag_clamped_nonnegative():
 def test_sample_from_conditional_full_cov_finite_on_ill_conditioned():
     """End-to-end guard: sampling with full_cov=True stays NaN-free on a
     layer whose Kmm is ill-conditioned (near-duplicate inducing inputs —
-    the UCI-digits failure mode, VERDICT r4 weak #3)."""
+    the UCI-digits failure mode)."""
     from deepcgp_tpu.models.layers import SVGPLayer
 
     M, D = 8, 6
@@ -433,9 +433,9 @@ def test_random_partial_view():
 
 
 def test_self_gram_uses_exact_precision():
-    """Self-grams (X2=None) must request Precision.HIGHEST — the TPU's
-    default single-pass-bf16 f32 matmul carries enough error to un-PSD an
-    ill-conditioned Kuu past the 1e-3 jitter (NaN Cholesky at init,
+    """Self-grams (X2=None) must request Precision.HIGHEST — a
+    reduced-precision f32 matmul (TF32 on the H100) carries enough error to
+    un-PSD an ill-conditioned Kuu past the 1e-3 jitter (NaN Cholesky at init,
     observed in examples/regression.py).  Cross-covariances keep the fast
     default."""
     import jax

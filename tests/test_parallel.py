@@ -28,7 +28,7 @@ def test_dryrun_multichip(n):
 
 
 def test_dryrun_multichip_catches_wrong_but_finite_sharding(monkeypatch):
-    """Fault injection (VERDICT r4 weak #5): a sharded step whose ELBO is
+    """Fault injection: a sharded step whose ELBO is
     finite but WRONG (the signature of a dropped psum / bad constraint)
     must trip the dryrun's replicated-reference assert, so the
     driver-visible MULTICHIP record fails loudly instead of recording
@@ -171,7 +171,7 @@ def test_experiment_cli_mesh_end_to_end(tmp_path):
     program (one epoch on the 8-virtual-device CPU mesh) — WITH TensorBoard
     enabled: the TB tasks (train-LL batches, layer images, param
     histograms) must consume host-local rows, not the 'data'-sharded
-    device-resident set (VERDICT r2 missing #4)."""
+    device-resident set."""
     import os
 
     from deepcgp_tpu.mnist import MNIST, read_args
@@ -270,7 +270,7 @@ def test_experiment_mesh_uses_multihost_input_path(tmp_path):
     """With --mesh the resident training set must be a global jax.Array
     row-sharded over 'data' built via the multihost path (process_count=1
     degenerates to the whole set, but the sharding layout is the multi-host
-    one — VERDICT r1 weak #5)."""
+    one)."""
     from jax.sharding import PartitionSpec
     from deepcgp_tpu.mnist import MNIST, read_args
     args = read_args([
@@ -304,76 +304,3 @@ def test_multihost_helpers_single_process():
     assert Xg.shape == (8, 2)
     assert len(Xg.sharding.device_set) == 4
     np.testing.assert_array_equal(np.asarray(Xg), X[:8])
-
-
-@pytest.mark.slow
-def test_sharded_step_pallas_interpret_matches_xla(monkeypatch):
-    """The pjit + pallas_call composition a real multi-chip TPU run would
-    execute (VERDICT r3 missing #2): DEEPCGP_PALLAS_FORCE=1 routes the
-    conditional's chol_with_inv, the NatGrad G-factorization, and the patch
-    extraction through their Pallas kernels (interpret mode on CPU) INSIDE
-    the dp+sp sharded train step, and the result must match the XLA-route
-    sharded step at f32 rounding level."""
-    from deepcgp_tpu.models.builder import BuilderFlags, build_model
-    from deepcgp_tpu.ops import pallas_linalg
-    from deepcgp_tpu.training import optim, trainer
-    from deepcgp_tpu.training.trainer import TrainConfig
-
-    rng = np.random.RandomState(0)
-    # M=64 (lane-aligned) so the f32 Pallas gates accept; f32 is what the
-    # real-TPU program runs.
-    flags = BuilderFlags(M='64,64', feature_maps='2', filter_sizes='5,3',
-                         strides='2,1', num_samples=2, batch_size=8)
-    X = rng.randn(96, 12, 12, 1).astype(np.float32)
-    Y = rng.randint(0, 10, size=(96, 1))
-    model = build_model(flags, X, Y, jax.random.PRNGKey(0),
-                        dtype=jnp.float32)
-    config = TrainConfig(optimizer='NatGrad', lr=0.01, lr_decay_steps=1000,
-                         gamma=0.001, batch_size=8)
-    state = trainer.init_state(model, config, jax.random.PRNGKey(1))
-    xb = jnp.asarray(X[:8].reshape(8, -1))
-    yb = jnp.asarray(Y[:8])
-    mesh = mesh_lib.make_mesh({'data': 4, 'model': 2})
-    xs = mesh_lib.shard_batch(mesh, xb)
-    ys = mesh_lib.shard_batch(mesh, yb)
-
-    # XLA route (the default on CPU).
-    step_fn, _ = make_sharded_train_fns(mesh, config)
-    ref_state, ref_elbo = step_fn(state, xs, ys)
-
-    # Pallas route, forced + counted (the counters prove the kernels were
-    # actually traced into the sharded program — a silently-closed gate
-    # would otherwise make this test vacuous).
-    monkeypatch.setenv('DEEPCGP_PALLAS_FORCE', '1')
-    assert optim._use_pallas_factor(jnp.float32, 64)
-    calls = {'batched': 0, 'upper': 0}
-    orig_b, orig_u = (pallas_linalg.chol_inv_batched,
-                      pallas_linalg.chol_right_solve_upper)
-
-    def count_b(A, **kw):
-        calls['batched'] += 1
-        return orig_b(A, **kw)
-
-    def count_u(A, X, **kw):
-        calls['upper'] += 1
-        return orig_u(A, X, **kw)
-
-    monkeypatch.setattr(pallas_linalg, 'chol_inv_batched', count_b)
-    monkeypatch.setattr(pallas_linalg, 'chol_right_solve_upper', count_u)
-    step_fn2, _ = make_sharded_train_fns(mesh, config)
-    pl_state, pl_elbo = step_fn2(state, xs, ys)
-
-    assert calls['batched'] >= 1   # conditional's Kuu chol_with_inv
-    assert calls['upper'] >= 1     # NatGrad G factor + W R^-T back-subst
-    assert np.isfinite(float(pl_elbo))
-    # f32 rounding between the Pallas factorization and LAPACK's, amplified
-    # by the conditional's Kuu solve chain: measured ~2e-5 relative on the
-    # ELBO; anything past 1e-4 would mean a real numerics break.
-    np.testing.assert_allclose(float(pl_elbo), float(ref_elbo), rtol=1e-4)
-    for li in (0, 1):
-        np.testing.assert_allclose(
-            np.asarray(pl_state.model.layers[li].q_mu),
-            np.asarray(ref_state.model.layers[li].q_mu), atol=1e-4)
-        np.testing.assert_allclose(
-            np.asarray(pl_state.model.layers[li].q_sqrt),
-            np.asarray(ref_state.model.layers[li].q_sqrt), atol=1e-4)

@@ -1,6 +1,6 @@
 """NatGrad-vs-Adam convergence sweep on REAL data (UCI digits).
 
-VERDICT r4 next #2: on the fixed digits split the 2-layer NatGrad run
+On the fixed digits split the 2-layer NatGrad run
 trailed Adam by 1.7 accuracy points (0.9749 vs 0.9916 converged) with
 zero tuning.  The reference's machinery (gamma annealing + backoff,
 `conv_gp/experiment.py:74-80,90-108`) exists to make NatGrad the BETTER
@@ -10,11 +10,11 @@ schedule, tracking held-out accuracy at every eval epoch plus the
 steps_back backoff counter (is it step size, whitening, or a genuine
 optimum?).
 
-All configs run inside ONE TPU client process (CLAUDE.md single-client
-rule); the per-config programs differ only in static TrainConfig fields,
-so reruns hit the persistent compile cache.
+All configs run inside ONE process (one JAX process per accelerator); the
+per-config programs differ only in static TrainConfig fields, so reruns hit
+the persistent compile cache.
 
-Usage:  nohup python tools/natgrad_digits.py > /tmp/ng_digits.log 2>&1 &
+Usage:  python tools/natgrad_digits.py > ng_digits.log
 """
 
 from __future__ import annotations

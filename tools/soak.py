@@ -7,9 +7,8 @@ must reach ~1.0.  Round-2 ran the same protocol; this script re-establishes
 the evidence after the round-3 math changes (rbg sampling, S-fold,
 patch-matmul cross-covariances, aggregate-then-solve KL trace).
 
-Usage (single TPU client, no timeouts):
-    nohup python tools/soak.py --config flagship --steps 10000 \
-        > /tmp/soak_flagship.log 2>&1 &
+Usage (one process per accelerator):
+    python tools/soak.py --config flagship --steps 10000 > soak_flagship.log
 """
 
 from __future__ import annotations
